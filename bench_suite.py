@@ -20,13 +20,10 @@ def log(*a):
 
 
 def _setup_jax():
-    import jax
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from reverie_tpu.utils.compile_cache import enable_compile_cache
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(os.path.dirname(os.path.abspath(__file__)), ".jax_cache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    enable_compile_cache()
 
 
 def _time2(fn):

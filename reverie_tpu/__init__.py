@@ -1,6 +1,6 @@
-"""reverie_tpu -- a TPU-native KKW MPC-in-the-head proof system.
+"""reverie_tpu -- a KKW MPC-in-the-head proof system on JAX accelerators.
 
-A from-scratch JAX/XLA/Pallas implementation of the NIZKPoK from KKW 2018
+A from-scratch JAX/XLA implementation of the NIZKPoK from KKW 2018
 ("Improved Non-Interactive Zero Knowledge with Applications to Post-Quantum
 Signatures"), with the capabilities of trailofbits/reverie: prover + verifier
 for circuits over GF(2) and Z_2^64 including mixed circuits with B2A
@@ -25,22 +25,44 @@ from .params import (
 __version__ = "0.1.0"
 
 
+#: fraction of a device's usable memory (`memory_stats()["bytes_limit"]`,
+#: which already reflects JAX's preallocation) that make_system plans a
+#: proof's exact device footprint into; the rest is left to XLA's own
+#: temporaries and to the next proof in a pipeline
+DEVICE_BUDGET_FRACTION = 0.5
+#: budget for backends that report no memory statistics (the host CPU)
+HOST_BUDGET_BYTES = 12 * 1024**3
+
+
+def default_budget_bytes(devices) -> int:
+    """Device memory a proof may plan for across `devices`: each device's
+    share is DEVICE_BUDGET_FRACTION of its `bytes_limit`; a device that
+    reports no statistics gets HOST_BUDGET_BYTES."""
+    total = 0
+    for d in devices:
+        stats = d.memory_stats() or {}
+        limit = stats.get("bytes_limit")
+        total += (int(DEVICE_BUDGET_FRACTION * limit) if limit
+                  else HOST_BUDGET_BYTES)
+    return total
+
+
 def make_system(program, params=DEFAULT_PARAMS, mesh=None,
                 hbm_budget_bytes=None, cache_key=None):
-    """Build the right prover/verifier for a circuit's size: the in-HBM
+    """Build the right prover/verifier for a circuit's size: the in-memory
     `TpuKKW` when its device footprint fits the budget, the O(segment)
     streaming `StreamingKKW` otherwise (segment size chosen to fit).  Both
     produce identical proof bytes; this is the "any circuit size just works"
     entry point.
 
-    hbm_budget_bytes: device memory to plan for (default: env
-    REVERIE_HBM_BUDGET or 12 GiB -- a single v5e chip is 16 GiB)."""
-    import os
-
+    hbm_budget_bytes: device memory to plan for; default
+    `default_budget_bytes` over the mesh's devices (or the first device)."""
     if hbm_budget_bytes is None:
-        hbm_budget_bytes = int(
-            os.environ.get("REVERIE_HBM_BUDGET", 12 * 1024**3)
-        )
+        import jax
+
+        devices = (list(mesh.devices.flat) if mesh is not None
+                   else jax.devices()[:1])
+        hbm_budget_bytes = default_budget_bytes(devices)
     R = params.total_reps
 
     # cheap lower bound (bytes/op/rep) to skip the host compile pass for

@@ -1,7 +1,7 @@
-"""Wrapping u64 arithmetic as (hi, lo) uint32 pairs for TPU.
+"""Wrapping u64 arithmetic as (hi, lo) uint32 pairs.
 
-TPU has no native 64-bit integers; the Z64 ring (reference src/algebra/z64/)
-is implemented on pairs of uint32 tensors.  All ops wrap mod 2^64.
+JAX runs with 64-bit types disabled (`jax_enable_x64` off), so the Z64 ring
+(reference src/algebra/z64/) is implemented on pairs of uint32 tensors.  All ops wrap mod 2^64.
 Works identically under jax.numpy and plain numpy (pass the namespace).
 """
 

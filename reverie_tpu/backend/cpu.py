@@ -2,7 +2,7 @@
 
 This is the bit-exact executable specification of the protocol -- the role of
 the reference's transcript + interpreter layers (src/transcript/*,
-src/interpreter/*) -- used as the truth oracle for the TPU backend and for
+src/interpreter/*) -- used as the truth oracle for the device backend and for
 proof (de)serialization.  Where the reference packs 8 reps x 8 players into
 one u64 and loops groups under rayon (proof/mod.rs:127-128), this backend
 carries a leading group axis G through every array, executing all groups of a

@@ -59,6 +59,11 @@ U8 = jnp.uint8
 U16 = jnp.uint16
 U32 = jnp.uint32
 
+#: lax.scan unroll of the GF2 wave loop.  Measured on an H100 at 400 W
+#: (SHA-256 prove, 5,198 waves): unroll 1 runs 101 ms; 2, 4 and 8 run
+#: 566-583 ms and compile slower (see PERF.md)
+SCAN_UNROLL = 1
+
 
 class _Cfg(NamedTuple):
     """Static trace configuration: two segments with equal _Cfg + equal wave
@@ -80,8 +85,8 @@ class _Cfg(NamedTuple):
     carry_outz: bool
     zkinds: int = -1  # bitmask of z64 opcodes present anywhere (-1 = all)
     #: GF2-only fast path: arena slots renumbered wave-contiguously so the
-    #: two arena writes are dynamic_update_slice (TPU row-scatter costs
-    #: ~17 us/step at batch lanes vs ~2 us for a contiguous update), and the
+    #: two arena writes are dynamic_update_slice (a contiguous update in
+    #: place of a row scatter), and the
     #: onl/pre stream events leave the scan as stacked ys re-ordered by one
     #: post-scan gather.  n_vals2 then holds the renumbered arena height.
     fast2: bool = False
@@ -102,9 +107,8 @@ def default_wave_width(cc: CompiledCircuit) -> int:
         for cols in lvl.values()
     )
     mean = max(1, n_gates // max(1, cc.depth))
-    # next pow2 >= mean (round 3: the former 2*mean rule gave W=64 for
-    # SHA-256's mean 26 -> 60% NOP slots; W=32 measured 28 vs 35 us/step
-    # with the same wave count +3.5%, tools/r3_scanbench7.py)
+    # next pow2 >= mean (a 2*mean rule gives W=64 for SHA-256's mean 26,
+    # 60% NOP slots; W=32 needs only 3.5% more waves)
     wave_width = 8
     while wave_width < min(256, mean):
         wave_width *= 2
@@ -158,7 +162,7 @@ class ScanExecutor:
             remap[wv.dst[writes]] = newids[writes]
             xs_host = {
                 "op": wv.op,
-                # fused index columns (round 3): ONE (2W,) arena gather
+                # fused index columns: ONE (2W,) arena gather
                 # replaces the 4 a/b mask/corr gathers (the arena packs
                 # mask|corr in one u16), ONE (2W,) tape gather replaces t0/t1
                 "ab": np.concatenate(
@@ -249,14 +253,10 @@ def _scan_trace_fast2(cfg: _Cfg, inp, xs, couts):
 
     The arena packs mask|corr into one u16 plane, so a single (2W,) gather
     (fused [a;b] index column) feeds all four operand reads and ONE
-    dynamic_update_slice writes both results -- round-3 rework, measured
-    28 vs 55 us/step at the SHA-256 batch shape (tools/r3_scanbench7.py).
-    The wave writes land at slot0 (the __init__ renumbering made each
+    dynamic_update_slice writes both results.  The wave writes land at slot0 (the __init__ renumbering made each
     wave's dst rows contiguous), and the onl/pre stream events leave the
     scan as stacked ys, re-ordered into program-order stream rows by one
-    post-scan gather -- row scatters inside a TPU scan cost ~17 us each at
-    batch lane counts (tools/r3_scanbench.py) and dominated deep-circuit
-    execution."""
+    post-scan gather instead of one row scatter per scan step."""
     mode, R = cfg.mode, cfg.R
     c2 = inp if cfg.carry_in else {}
     carried = None
@@ -334,6 +334,9 @@ def _scan_trace_fast2(cfg: _Cfg, inp, xs, couts):
             jnp.zeros_like(a_c),
         )
         packed = mask_new.astype(U16) | (corr_new.astype(U16) << 8)
+        # this and the other barriers in the scan bodies: miscompile
+        # workaround (see backend/tpu._scat), kept until the GPU shows byte
+        # identity without them
         packed = jax.lax.optimization_barrier(packed)
         arena = jax.lax.dynamic_update_slice_in_dim(
             arena, packed, w["slot0"], axis=0)
@@ -347,14 +350,8 @@ def _scan_trace_fast2(cfg: _Cfg, inp, xs, couts):
             )
         return (arena, fail), ys
 
-    import os as _os
-
-    unroll = int(_os.environ.get(
-        "REVERIE_SCAN_UNROLL",
-        4 if jax.default_backend() == "tpu" else 1,
-    ))
     (arena, fail), ys = jax.lax.scan(
-        body, (arena0, fail0), xs, unroll=unroll)
+        body, (arena0, fail0), xs, unroll=SCAN_UNROLL)
     pre2 = jnp.take(ys["pre"].reshape(-1, R), couts["gidx_pre"], axis=0)
     if cfg.pre2 == 0:
         pre2 = jnp.zeros((0, R), U8)

@@ -1,7 +1,8 @@
-"""Circuit compiler for the TPU backend.
+"""Circuit compiler for the device backend.
 
 The reference interprets gates one at a time (src/interpreter/single.rs:106-
-157); a TPU executes the circuit as *levelized batched tensor ops* instead.
+157); the device executes the circuit as *levelized batched tensor ops*
+instead.
 This compiler turns a composite program into static-level gate tables:
 
   * SSA conversion: the mutable wire arena becomes an immutable value arena
@@ -168,7 +169,7 @@ def compile_program(program: Sequence[CombineOp],
     cache_key: opaque bytes that uniquely identify `program` (e.g. the
     program file's raw bytes, or a builder name+params string) -- enables a
     pickle disk cache under REVERIE_COMPILE_CACHE (default
-    ~/.cache/reverie_tpu/circuits), salted with this module's source hash.
+    `<repo>/.circuit_cache`), salted with this module's source hash.
     The levelizer is a pure-Python per-gate pass (~10 s at 1M gates), a
     fixed warm-start cost for repeat circuits otherwise.  Only valid
     without carry/out_val_map plumbing (whole-program compiles)."""
@@ -179,10 +180,10 @@ def compile_program(program: Sequence[CombineOp],
     cpath = None
     if (cache_key is not None and carry_in is None and out_val_map is None
             and carry_inz is None and out_val_mapz is None):
-        cdir = os.environ.get(
-            "REVERIE_COMPILE_CACHE",
-            os.path.join(os.path.expanduser("~"), ".cache", "reverie_tpu",
-                         "circuits"))
+        from ..utils.compile_cache import REPO_ROOT
+
+        cdir = os.environ.get("REVERIE_COMPILE_CACHE",
+                              os.path.join(REPO_ROOT, ".circuit_cache"))
         if cdir not in ("", "0"):
             h = hashlib.sha256(_compile_cache_salt() + cache_key).hexdigest()
             cpath = os.path.join(cdir, h + ".pkl")

@@ -68,45 +68,25 @@ def _load_witness(path: str):
     return parse_witness_file(path)
 
 
-def _enable_jit_cache(backend: str = "tpu") -> None:
-    """Persistent XLA compile cache for the jitted backends: repeated CLI
-    invocations on the same circuit shape skip recompilation (main.rs has no
-    analog -- Rust compiles ahead of time; this is the JAX equivalent).
-
-    For --backend cpu, also pin jax to its CPU platform *before* any device
-    is touched: site-wide plugins may register an external accelerator
-    platform whose initialization blocks indefinitely when the device link
-    is down, which must never stall a CPU-only proof.  (Setting the
-    JAX_PLATFORMS env var is not sufficient once such a plugin has
-    registered itself; the config update is.)"""
-    import os
-
-    import jax
-
-    if backend == "cpu":
-        try:
-            jax.config.update("jax_platforms", "cpu")
-        except Exception:
-            pass
-    cache = os.environ.get(
-        "REVERIE_JIT_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache", "reverie_tpu", "jax"),
-    )
-    if cache and cache != "0":
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-
-
 def _backend_system(program, backend: str, segment_ops: int = 0,
                     cache_key=None):
-    _enable_jit_cache(backend)
+    """The jitted prover/verifier for `backend`.  `--backend cpu` with
+    `--segment-ops` keeps the streamed JAX work on the host CPU; jax is
+    pinned there before any device is touched."""
+    import jax
+
+    from .utils.compile_cache import enable_compile_cache
+
+    if backend == "cpu":
+        jax.config.update("jax_platforms", "cpu")
+    enable_compile_cache()
     if segment_ops:
         from .backend.streaming import StreamingKKW
 
         return StreamingKKW(program, segment_ops)
     if backend == "tpu":
         # auto-selects streaming segmentation when the circuit's device
-        # footprint exceeds the HBM budget (REVERIE_HBM_BUDGET)
+        # footprint exceeds the device memory budget (make_system)
         from . import make_system
 
         return make_system(program, cache_key=cache_key)
@@ -207,7 +187,7 @@ def cmd_version(args) -> int:
 
 
 def app() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(prog="reverie-tpu", description="Gotta go fast (on TPUs)")
+    p = argparse.ArgumentParser(prog="reverie-tpu", description="Gotta go fast")
     p.add_argument(
         "--operation",
         required=True,

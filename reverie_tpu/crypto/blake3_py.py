@@ -1,5 +1,5 @@
 """Independent pure-Python BLAKE3 (spec-derived) used to cross-validate the
-native C implementation and the Pallas kernel in tests.  Slow; not used on
+native C implementation and the device kernel in tests.  Slow; not used on
 any hot path."""
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Bitsliced AES-128-CTR on device (JAX/XLA) -> GF2 mask-tape generation.
 
 The reference's PRG is AES-128-CTR with AES-NI (crypto/prg.rs:13-38); here
-the cipher is evaluated as a bitsliced boolean circuit on the VPU:
+the cipher is evaluated as a bitsliced boolean circuit in u32 vector ops:
 
   * lanes: 32 AES instances per u32 word; key order is rep-major
     (key k = rep*8 + player), so one u32 word holds 4 reps x 8 players --
@@ -102,10 +102,7 @@ def _mid_rounds(planes, rkp_mid):
     """The 9 structurally-identical middle AES rounds as a lax.scan over the
     round-key planes.  The unrolled form (~16k HLO ops: 16 bytes x 113-gate
     S-box x 9 rounds) takes XLA:CPU tens of minutes to compile on small
-    hosts (observed when this container migrated to a 4-core machine); the
-    scan body is one round.  REVERIE_AES_UNROLL=1 restores the unrolled
-    graph for A/B on TPU (where the Pallas kernel is the default anyway)."""
-    import os
+    hosts; the scan body is one round."""
 
     def body(pl, rk):
         pl = list(pl)
@@ -115,11 +112,6 @@ def _mid_rounds(planes, rkp_mid):
         pl = _add_round_key(pl, rk)
         return jax.lax.optimization_barrier(tuple(pl)), None
 
-    if os.environ.get("REVERIE_AES_UNROLL"):
-        pl = tuple(planes)
-        for r in range(rkp_mid.shape[0]):
-            pl, _ = body(pl, rkp_mid[r])
-        return list(pl)
     pl, _ = jax.lax.scan(body, tuple(planes), rkp_mid)
     return list(pl)
 
@@ -197,18 +189,15 @@ def round_key_planes_device(keys):
     """Device AES-128 key schedule: keys (K, 16) u8 -> (11, 16, 8, Kw) u32.
 
     Byte-identical to the host round_key_planes (differential test in
-    tests/test_pallas_kernels.py) but runs on device, so callers upload 16
-    bytes per key instead of 11x16 round-key bit-planes -- the (11,16,8,Kw)
-    tensor is 45x larger than the keys and dominated prove_batch's tape
-    phase over the slow host<->device link."""
+    tests/test_device_tapes.py) but runs on device, so callers upload 16
+    bytes per key instead of 11x16 round-key bit-planes (the (11,16,8,Kw)
+    tensor is 45x larger than the keys)."""
     kp = key_planes_device(keys)  # (16, 8, Kw)
     Kw = kp.shape[-1]
     # rcon as per-round bit-plane XOR masks so every round's body is
     # identical and the 10 rounds run as a lax.scan (the unrolled schedule's
     # 40 S-box graphs take XLA:CPU many minutes on small hosts; see
-    # _mid_rounds).  REVERIE_AES_UNROLL=1 restores the unrolled form.
-    import os
-
+    # _mid_rounds)
     rc_xs = jnp.asarray(
         np.array(
             [[0xFFFFFFFF if (rc >> bit) & 1 else 0 for bit in range(8)]
@@ -239,16 +228,8 @@ def round_key_planes_device(keys):
         out = jnp.stack([jnp.stack(byp, 0) for byp in new_st], 0)
         return out, out
 
-    if os.environ.get("REVERIE_AES_UNROLL"):
-        st, ys = kp, []
-        for r in range(10):
-            st, y = body(st, rc_xs[r])
-            ys.append(y)
-        rounds = jnp.stack([kp] + ys, 0)
-    else:
-        _, ys = jax.lax.scan(body, kp, rc_xs)
-        rounds = jnp.concatenate([kp[None], ys], axis=0)
-    return rounds  # (11, 16, 8, Kw)
+    _, ys = jax.lax.scan(body, kp, rc_xs)
+    return jnp.concatenate([kp[None], ys], axis=0)  # (11, 16, 8, Kw)
 
 
 _RKP_JIT = None
@@ -257,7 +238,7 @@ _RKP_JIT = None
 def rkp_on_device(player_keys: np.ndarray):
     """Host (K, 16) u8 keys -> device (11, 16, 8, K//32) u32 round-key
     planes; uploads only the raw keys and expands on device (the plane
-    tensor is 45x the key bytes -- a large transfer on tunneled rigs)."""
+    tensor is 45x the key bytes)."""
     global _RKP_JIT
     if _RKP_JIT is None:
         _RKP_JIT = jax.jit(round_key_planes_device)
@@ -330,9 +311,7 @@ def aes_ctr_tape_z64(rkp, ctrp, lane_mask):
     pairs.  `lane_mask` is in raw key order (bit k%32 = key k); the CALLER
     must order keys player-major (key p*R + r = player p of rep r,
     lane_mask_raw_pm) so the (mz, 8, R) reshape below is free and the
-    repetition axis lands on vector lanes (round-4 layout: the old
-    (mz, R, 8) form put the 8-wide player axis on lanes, wasting 15/16 of
-    every vreg and forcing a moveaxis per share event).
+    repetition axis is the minor (contiguous) axis.
     """
     Kw = rkp.shape[-1]
     B = ctrp.shape[-1]
@@ -357,13 +336,14 @@ def aes_ctr_tape_z64(rkp, ctrp, lane_mask):
     return lo.reshape(B * 2, 8, R), hi.reshape(B * 2, 8, R)
 
 
-def aes_ctr_tape_z64_chunked(rkp, ctrp, lane_mask, chunk_b: int = 2048):
+def aes_ctr_tape_z64_chunked(rkp, ctrp, lane_mask, chunk_b: int = 1024):
     """aes_ctr_tape_z64 with a lax.scan over block chunks.
 
-    The unchunked kernel materializes (16, B, Kw, 32) byte-expansion
-    intermediates -- at large mz this OOMs the remote compile helper and
-    explodes HBM (round-1: compile crash at mz=40k).  Scanning fixed-size
-    chunks keeps the working set and the compiled HLO O(chunk)."""
+    The unchunked form materializes (16, B, Kw, 32) byte-expansion
+    intermediates in device memory; scanning fixed-size chunks keeps the
+    working set and the compiled HLO O(chunk).  chunk_b = 1024 was the
+    fastest measured on an H100 at 400 W, z64 50k-mul tape (R = 256):
+    60.4 ms, vs 70.7 at 2048, 87.5 at 4096 and 126.2 unchunked."""
     Kw = rkp.shape[-1]
     B = ctrp.shape[-1]
     R = Kw * 32 // 8
@@ -385,17 +365,6 @@ def aes_ctr_tape_z64_chunked(rkp, ctrp, lane_mask, chunk_b: int = 2048):
     lo = lo.reshape(Bp * 2, 8, R)[: B * 2]
     hi = hi.reshape(Bp * 2, 8, R)[: B * 2]
     return lo, hi
-
-
-def lane_mask_raw(omit: np.ndarray, R: int) -> np.ndarray:
-    """(R,) omit -> (R*8//32,) u32 mask in raw key order (rep-major keys)."""
-    mask = np.full(R * 8, 1, dtype=np.uint8)
-    for r in range(R):
-        p = int(omit[r])
-        if p < 8:
-            mask[r * 8 + p] = 0
-    packed = np.packbits(mask, bitorder="little")
-    return np.ascontiguousarray(packed).view("<u4").astype(np.uint32)
 
 
 def lane_mask_raw_pm(omit: np.ndarray, R: int) -> np.ndarray:

@@ -1,4 +1,4 @@
-"""Batched BLAKE3 on device (JAX/XLA, VPU-vectorized).
+"""Batched BLAKE3 on device (JAX/XLA, vectorized over streams).
 
 Hashes many equal-length byte streams at once: the transcript buffers are
 (T, R) uint8 tensors whose columns are the per-repetition streams
@@ -10,12 +10,11 @@ Implementation notes:
   * HOT path (bulk chunk CVs, `lax.scan` over blocks): the 4x4 state is 16
     SEPARATE word tensors -- each G mix is wiring between named variables,
     so the diagonal phase costs zero data movement.  (A (4, ...) row-tensor
-    layout pays 4 sublane-relayout `rolls` per phase -- 28 relayouts per
-    64-byte block.)
-  * COLD paths (tree reduce, pair hashing) keep the row-tensor compress:
-    chaining compress_words graphs OUTSIDE a scan makes XLA's CPU compile
-    superlinear (2 chained tree levels = 19 s, measured), while the rolls
-    cost nothing at these tiny shapes.
+    layout pays 4 `rolls` per phase -- 28 relayouts per 64-byte block.)
+  * COLD paths (tree reduce, pair hashing, tail chunks) use the row-tensor
+    compress with its rounds under a lax.scan: chained unrolled compresses
+    dominate compile time (XLA:CPU and XLA:GPU alike), while the rolls and
+    the round loop cost little at these small shapes.
   * Blocks chain within a chunk via `lax.scan` with the 8-word CV tuple as
     carry; chunks vectorize as lanes.
   * The left-biased chunk tree reduces with one *batched* compress per tree
@@ -77,44 +76,43 @@ def _g(a, b, c, d, mx, my):
     return a, b, c, d
 
 
-def _g_vec(a, b, c, d, mx, my):
-    a = a + b + mx
-    d = _rotr(d ^ a, 16)
-    c = c + d
-    b = _rotr(b ^ c, 12)
-    a = a + b + my
-    d = _rotr(d ^ a, 8)
-    c = c + d
-    b = _rotr(b ^ c, 7)
-    return a, b, c, d
-
-
 def _roll(x, k: int):
     return jnp.roll(x, -k, axis=0)
+
+
+# _SCHED as one (7 rounds, 4 phases, 4 rows) index table for the round scan
+_SCHED_TABLE = np.array([[list(ph) for ph in rnd] for rnd in _SCHED], np.int32)
 
 
 def compress_rows(r0, r1, m, counter_lo, counter_hi, block_len, flags,
                   full: bool = False):
     """One vectorized compression on (4, S) state rows (diagonal phase via
-    rolls).  Used on the COLD paths (tree reduce, pair hashing, tail
-    chunks): the rolls cost sublane relayouts at runtime, but chained
-    row-compresses compile fast, whereas chaining `compress_words` graphs
-    outside lax.scan makes XLA's CPU pipeline superlinear (2 chained levels
-    = 19 s compile, measured).  The hot bulk-chunk path uses compress_words
-    under a scan instead."""
+    rolls), m: (16, S) message rows.  Used on the COLD paths (tree reduce,
+    pair hashing, tail chunks).  The 7 rounds run as a lax.scan over the
+    message schedule table: one round body per compress instead of seven
+    keeps XLA's compile time for the hash jits about 3x lower on the GPU,
+    at well under a millisecond of extra loop time per hashed stream.  The
+    hot bulk-chunk path uses compress_words, unrolled, under its own
+    scan."""
     S = r0.shape[1:]
     bc = lambda x: jnp.broadcast_to(jnp.asarray(x, U32), S).astype(U32)
-    a, b = r0, r1
     c = jnp.broadcast_to(jnp.asarray(IV[:4])[(slice(None),) + (None,) * len(S)], (4,) + S).astype(U32)
     d = jnp.stack(
         [bc(counter_lo), bc(counter_hi), bc(block_len), bc(flags)], axis=0
     )
-    for rnd in range(7):
-        cx, cy, dx, dy = _SCHED[rnd]
-        a, b, c, d = _g_vec(a, b, c, d, m[cx], m[cy])
+
+    def rnd(state, sched):
+        a, b, c, d = state
+        a, b, c, d = _g(a, b, c, d, jnp.take(m, sched[0], axis=0),
+                            jnp.take(m, sched[1], axis=0))
         b, c, d = _roll(b, 1), _roll(c, 2), _roll(d, 3)
-        a, b, c, d = _g_vec(a, b, c, d, m[dx], m[dy])
+        a, b, c, d = _g(a, b, c, d, jnp.take(m, sched[2], axis=0),
+                            jnp.take(m, sched[3], axis=0))
         b, c, d = _roll(b, 3), _roll(c, 2), _roll(d, 1)
+        return (a, b, c, d), None
+
+    (a, b, c, d), _ = jax.lax.scan(rnd, (r0, r1, c, d),
+                                   jnp.asarray(_SCHED_TABLE))
     out0 = a ^ c
     out1 = b ^ d
     if full:
@@ -170,15 +168,11 @@ def _bytes_to_words(buf):
 
 
 def _chunk_cvs(words, nblocks: int, block_lens: np.ndarray, counters: np.ndarray,
-               last_flags_extra: int = 0, use_words: bool = False):
+               last_flags_extra: int = 0):
     """words: (n_chunks, nblocks, 16, R) u32 -> (r0, r1) each (4, n_chunks, R).
 
-    use_words selects the 16-separate-word-tensor compress for the scan body
-    (zero relayouts at runtime -- the hot bulk-chunk path).  It must stay OFF
-    for the small tail/one-chunk calls that get fused inside executor jits:
-    XLA's CPU pipeline goes pathological (>30 min vs 30 s for the golden-test
-    executor, measured round 2c) compiling the ~500-op words scan body inside
-    those larger graphs, while the row-tensor body compiles fast everywhere."""
+    The small tail/one-chunk path: blocks chain through a lax.scan whose body
+    is the row-tensor compress."""
     n_chunks, _, _, R = words.shape
     ctr = jnp.asarray(counters, U32).reshape(n_chunks, 1)
 
@@ -189,21 +183,6 @@ def _chunk_cvs(words, nblocks: int, block_lens: np.ndarray, counters: np.ndarray
     ms = jnp.swapaxes(words, 0, 1)  # (nblocks, n_chunks, 16, R)
     ms = jnp.swapaxes(ms, 1, 2)  # (nblocks, 16, n_chunks, R)
     xs = (ms, jnp.asarray(block_lens, U32), jnp.asarray(flags, U32))
-
-    if use_words:
-        iv = tuple(
-            jnp.broadcast_to(jnp.asarray(int(IV[i]), U32), (n_chunks, R))
-            for i in range(8)
-        )
-
-        def body(cv, x):
-            m, blen, flg = x
-            out = compress_words(cv, [m[i] for i in range(16)], ctr, 0, blen, flg)
-            return out, None
-
-        cv, _ = jax.lax.scan(body, iv, xs)
-        return jnp.stack(cv[:4], axis=0), jnp.stack(cv[4:], axis=0)
-
     r0, r1 = _iv_rows((n_chunks, R))
 
     def body_rows(carry, x):
@@ -220,9 +199,9 @@ def _chunk_cvs_indexed(words, chunk_base):
     """CVs of full chunks WITHOUT the global block-major transpose: the scan
     runs over the block index and dynamic-slices each (n, 16, R) block plane
     out of the natural (n, 16, 16, R) words layout.  _chunk_cvs' swapaxes
-    pair relayouts the whole 0.5 GB transcript before compressing (~half
-    the production hash_columns time at the 1M-gate shape); slicing inside
-    the body reads each plane once with contiguous 16*R-word rows."""
+    pair would relayout the whole transcript (0.5 GB at the 1M-gate shape)
+    before compressing; slicing inside the body reads each plane once with
+    contiguous 16*R-word rows."""
     n, R = words.shape[0], words.shape[-1]
     ctr = (jnp.asarray(chunk_base, U32) + jnp.arange(n, dtype=U32)).reshape(n, 1)
     flags = np.zeros(16, np.uint32)
@@ -243,86 +222,60 @@ def _chunk_cvs_indexed(words, chunk_base):
     return jnp.stack(cv[:4], axis=0), jnp.stack(cv[4:], axis=0)
 
 
-def _bulk_cvs(words, chunk_base):
-    """CVs of full (16x64 B) chunks from pre-materialized words: words
-    (n, 16, 16, R) u32, chunk_base the global counter of chunk 0 (int or
-    traced scalar).  XLA path only -- the production TPU route is
-    _bulk_cvs_bytes, which skips the words materialization entirely.
-    REVERIE_BLAKE3_SCAN=1 restores the transposed-scan form (the indexed
-    scan skips the 0.5 GB block-major relayout; see _chunk_cvs_indexed)."""
-    import os
-
-    n = words.shape[0]
-    if not os.environ.get("REVERIE_BLAKE3_SCAN"):
-        return _chunk_cvs_indexed(words, chunk_base)
-    ctr = jnp.asarray(chunk_base, U32) + jnp.arange(n, dtype=U32)
-    return _chunk_cvs(words, 16, np.full(16, 64, np.uint32), ctr, use_words=True)
-
-
-def _bulk_cvs_bytes(buf, n_bulk: int, chunk_base, pallas_ok: bool = True):
-    """CVs of the first `n_bulk` full chunks straight from transcript bytes:
-    buf (>= n_bulk*1024 rows, R) uint8 in the natural layout.
-
-    On TPU this dispatches to the from-bytes Pallas kernel
-    (blake3_pallas.chunk_cvs_from_bytes): the bytes->words combine is a free
-    sublane bitcast in-kernel and the 16-word state stays in vregs, removing
-    the strided-u8 XLA pass + 0.5 GB u32 intermediate the word paths pay
-    (round-3 HW: 27 ms production vs 9 ms pre-materialized words at T=2M).
-    REVERIE_BLAKE3_FB=0 restores the XLA path, =nt selects the
-    no-corner-turn kernel variant."""
-    import os
-
+def _bulk_cvs_bytes(buf, n_bulk: int, chunk_base):
+    """CVs of the first `n_bulk` full (16x64 B) chunks straight from
+    transcript bytes: buf (>= n_bulk*1024 rows, R) uint8 in the natural
+    layout; chunk_base is the global counter of chunk 0 (int or traced
+    scalar)."""
     R = buf.shape[1]
-    sel = os.environ.get("REVERIE_BLAKE3_FB", "1")
-    if (
-        pallas_ok
-        and jax.default_backend() == "tpu"
-        and not os.environ.get("REVERIE_NO_PALLAS")
-        and sel != "0"
-        and n_bulk >= 2
-    ):
-        from . import blake3_pallas as bp
-
-        return bp.chunk_cvs_from_bytes(
-            buf, n_bulk, chunk_base, transpose=(sel != "nt")
-        )
     words = _bytes_to_words(buf[: n_bulk * 1024]).reshape(n_bulk, 16, 16, R)
-    return _bulk_cvs(words, chunk_base)
+    return _chunk_cvs_indexed(words, chunk_base)
 
 
 def _tree_reduce(r0, r1, is_root: bool):
     """r0, r1: (4, n, R) chunk CVs -> (4, R) root output rows.
 
     Level-wise adjacent pairing (odd last promoted) == BLAKE3's left-biased
-    tree; one batched compress per level."""
+    tree.  The levels run as one fixed-shape loop body: every level
+    compresses all n//2 pair slots of the full-size buffer (slots past the
+    live count compute values that are never read), so the tree compiles
+    ONE parent compress instead of one per level -- unrolled levels
+    dominated the hash's compile time (about 11 levels at the 1M-gate
+    shape)."""
     n = r0.shape[1]
     assert n >= 2
-    while n > 2:
-        pairs = n // 2
+    half = n // 2
+    col = jnp.arange(n, dtype=jnp.int32)
+
+    def level(carry):
+        r0, r1, cnt = carry
         m = jnp.concatenate(
-            [r0[:, 0 : 2 * pairs : 2], r1[:, 0 : 2 * pairs : 2],
-             r0[:, 1 : 2 * pairs : 2], r1[:, 1 : 2 * pairs : 2]],
+            [r0[:, 0 : 2 * half : 2], r1[:, 0 : 2 * half : 2],
+             r0[:, 1 : 2 * half : 2], r1[:, 1 : 2 * half : 2]],
             axis=0,
-        )  # (16, pairs, R)
+        )  # (16, half, R)
         c0, c1 = _iv_rows(m.shape[1:])
         o0, o1 = compress_rows(c0, c1, m, 0, 0, 64, PARENT)
-        if n % 2:
-            r0 = jnp.concatenate([o0, r0[:, -1:]], axis=1)
-            r1 = jnp.concatenate([o1, r1[:, -1:]], axis=1)
-        else:
-            r0, r1 = o0, o1
-        n = r0.shape[1]
+        pairs, odd = cnt // 2, cnt % 2
+        # promote the odd last node to slot `pairs`
+        last0 = jax.lax.dynamic_index_in_dim(r0, cnt - 1, axis=1)
+        last1 = jax.lax.dynamic_index_in_dim(r1, cnt - 1, axis=1)
+        keep = ((col == pairs) & (odd == 1))[None, :, None]
+        r0 = jnp.where(keep, last0, r0.at[:, :half].set(o0))
+        r1 = jnp.where(keep, last1, r1.at[:, :half].set(o1))
+        return r0, r1, pairs + odd
+
+    if n > 2:
+        r0, r1, _ = jax.lax.while_loop(
+            lambda c: c[2] > 2, level, (r0, r1, jnp.int32(n)))
     m = jnp.concatenate([r0[:, 0], r1[:, 0], r0[:, 1], r1[:, 1]], axis=0)
     c0, c1 = _iv_rows(m.shape[1:])
     return compress_rows(c0, c1, m, 0, 0, 64, PARENT | (ROOT if is_root else 0))
 
 
-def hash_columns(buf, T: int, pallas_ok: bool = True):
+def hash_columns(buf, T: int):
     """buf: (>=T, R) uint8 (rows beyond T ignored); returns (R, 32) uint8
-    per-column blake3 hashes.  T is static.  pallas_ok=False forces the XLA
-    bulk path -- callers tracing under a device mesh must pass it (GSPMD
-    cannot partition pallas_call; the per-column XLA scan partitions
-    trivially on the lane axis)."""
+    per-column blake3 hashes.  T is static."""
     R = buf.shape[1]
     if T == 0:
         from ..blake3_py import blake3_py
@@ -340,7 +293,7 @@ def hash_columns(buf, T: int, pallas_ok: bool = True):
 
     # only the TAIL chunk ever needs zero padding (<= 1 KiB concat); the bulk
     # chunks read the unpadded buffer directly (padding the whole transcript
-    # to a chunk multiple was a 0.5 GB device copy at the 1M-gate shape)
+    # to a chunk multiple is a 0.5 GB device copy at the 1M-gate shape)
     tail = buf[(n_chunks - 1) * 1024 :]
     if tail.shape[0] != 1024:
         tail = jnp.concatenate(
@@ -353,7 +306,7 @@ def hash_columns(buf, T: int, pallas_ok: bool = True):
                             np.array([0]), last_flags_extra=ROOT)
         out = (r0[:, 0], r1[:, 0])
     else:
-        f0, f1 = _bulk_cvs_bytes(buf, n_chunks - 1, 0, pallas_ok)
+        f0, f1 = _bulk_cvs_bytes(buf, n_chunks - 1, 0)
         t0, t1 = _chunk_cvs(tail_words[:, :nb_tail], nb_tail, tail_lens,
                             np.array([n_chunks - 1]))
         r0 = jnp.concatenate([f0, t0], axis=1)
@@ -382,41 +335,44 @@ def _rows_to_bytes(r0, r1):
 # chunk CVs on device (reference hashes the same streams sequentially on the
 # host, crypto/hash.rs:28-104).  State per stream: cvs0/cvs1 = (4, cap, R)
 # chunk CVs (cap = n_chunks_total - 1; the final chunk is always held back in
-# `rem` so CHUNK_END/ROOT flags land correctly), rem = (1024, R) partial-chunk
-# bytes, plus host-tracked static rem_len/chunk counters.
+# `rem` so CHUNK_END/ROOT flags land correctly), rem = (1024, R) whose LAST
+# rem_len rows are the pending partial-chunk bytes (right-aligned), plus
+# host-tracked rem_len/chunk counters.
 # ---------------------------------------------------------------------------
 
 
-def absorb_columns(cvs0, cvs1, rem, chunk_base, new, rem_len: int,
-                   n_absorb: int, pallas_ok: bool = True):
-    """Absorb an (L, R) byte block.  rem_len and n_absorb are static (chosen
-    by the host so absorbed chunks never include the stream's final chunk);
-    chunk_base is a traced i32 scalar (uniform segments share one compile).
-    Returns updated (cvs0, cvs1, rem)."""
-    L, R = new.shape
-    buf = jnp.concatenate([rem[:rem_len], new], axis=0) if rem_len else new
-    consumed = n_absorb * 1024
+def absorb_columns(cvs0, cvs1, rem, chunk_base, new, rem_len, n_absorb: int):
+    """Absorb an (L, R) byte block.  n_absorb is static (chosen by the host
+    so absorbed chunks never include the stream's final chunk); rem_len and
+    chunk_base are traced i32 scalars, so uniform segments share at most
+    two compiles per stream (n_absorb takes two values).  Returns updated
+    (cvs0, cvs1, rem)."""
+    L = new.shape[0]
+    # the pending bytes are buf[1024 - rem_len : 1024 + L], contiguous
+    buf = jnp.concatenate([rem, new], axis=0)
     if n_absorb:
-        c0, c1 = _bulk_cvs_bytes(buf, n_absorb, chunk_base, pallas_ok)
+        bulk = jax.lax.dynamic_slice_in_dim(buf, 1024 - rem_len,
+                                            n_absorb * 1024, axis=0)
+        c0, c1 = _bulk_cvs_bytes(bulk, n_absorb, chunk_base)
         cvs0 = jax.lax.dynamic_update_slice(cvs0, c0, (0, chunk_base, 0))
         cvs1 = jax.lax.dynamic_update_slice(cvs1, c1, (0, chunk_base, 0))
-    tail = buf[consumed:]
-    new_rem_len = rem_len + L - consumed
-    rem = jnp.zeros((1024, R), jnp.uint8).at[:new_rem_len].set(tail)
-    return cvs0, cvs1, rem
+    # what is left (< 1024 bytes) ends the buffer: right-aligned already
+    return cvs0, cvs1, buf[L:]
 
 
 def finalize_columns(cvs0, cvs1, rem, total_len: int):
-    """cvs0/cvs1: (4, n_chunks-1, R) chunk CVs 0..n_chunks-2; rem holds the
-    final chunk's bytes (zero-padded).  Returns (R, 32) per-column hashes.
-    total_len > 0 (the caller special-cases the empty stream)."""
+    """cvs0/cvs1: (4, n_chunks-1, R) chunk CVs 0..n_chunks-2; the last
+    rows of rem hold the final chunk's bytes.  Returns (R, 32) per-column
+    hashes.  total_len > 0 (the caller special-cases the empty stream)."""
     n_chunks = (total_len + 1023) // 1024
     tail_len = total_len - (n_chunks - 1) * 1024
     nb_tail = max(1, (tail_len + 63) // 64)
     tail_lens = np.full(nb_tail, 64, np.uint32)
     tail_lens[nb_tail - 1] = tail_len - (nb_tail - 1) * 64
     R = rem.shape[1]
-    words = _bytes_to_words(rem).reshape(1, 16, 16, R)[:, :nb_tail]
+    tail = jnp.concatenate(
+        [rem[1024 - tail_len:], jnp.zeros((1024 - tail_len, R), jnp.uint8)])
+    words = _bytes_to_words(tail).reshape(1, 16, 16, R)[:, :nb_tail]
     if n_chunks == 1:
         r0, r1 = _chunk_cvs(words, nb_tail, tail_lens, np.array([0]),
                             last_flags_extra=ROOT)
@@ -435,7 +391,7 @@ _finalize_jit = None
 def _jits():
     global _absorb_jit, _finalize_jit
     if _absorb_jit is None:
-        _absorb_jit = jax.jit(absorb_columns, static_argnums=(5, 6, 7))
+        _absorb_jit = jax.jit(absorb_columns, static_argnums=(6,))
         _finalize_jit = jax.jit(finalize_columns, static_argnums=(3,))
     return _absorb_jit, _finalize_jit
 
@@ -452,10 +408,9 @@ class ColumnHasher:
         hashes = h.finalize()                            # (R, 32)
     """
 
-    def __init__(self, total_len: int, R: int, pallas_ok: bool = True):
+    def __init__(self, total_len: int, R: int):
         self.total_len = total_len
         self.R = R
-        self.pallas_ok = pallas_ok
         self.n_chunks = max(1, (total_len + 1023) // 1024)
         cap = self.n_chunks - 1
         self.cvs0 = jnp.zeros((4, max(cap, 1), R), U32)[:, :cap]
@@ -473,8 +428,8 @@ class ColumnHasher:
         n_absorb = min(avail // 1024, (self.n_chunks - 1) - self.chunk_base)
         self.cvs0, self.cvs1, self.rem = self._absorb(
             self.cvs0, self.cvs1, self.rem,
-            jnp.int32(self.chunk_base), new, self.rem_len, n_absorb,
-            self.pallas_ok,
+            jnp.int32(self.chunk_base), new, jnp.int32(self.rem_len),
+            n_absorb,
         )
         self.chunk_base += n_absorb
         self.rem_len = avail - n_absorb * 1024

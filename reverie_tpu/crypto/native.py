@@ -1,11 +1,16 @@
 """ctypes bindings to the native crypto library (libreverie_native.so).
 
 Builds the library on first use if the shared object is missing or stale.
+The build is safe when several processes start at once: it holds an
+exclusive lock on the source directory and writes to a temporary name that
+is renamed into place, so no process loads a partly written library.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import subprocess
 import threading
@@ -16,12 +21,40 @@ _lock = threading.Lock()
 _lib = None
 
 
-def _build() -> None:
-    subprocess.run(
-        ["make", "-s", "-C", _NATIVE_DIR],
-        check=True,
-        capture_output=True,
+def _stale() -> bool:
+    if not os.path.exists(_LIB_PATH):
+        return True
+    built = os.path.getmtime(_LIB_PATH)
+    return any(
+        os.path.getmtime(os.path.join(_NATIVE_DIR, f)) > built
+        for f in os.listdir(_NATIVE_DIR)
+        if f.endswith(".c")
     )
+
+
+@contextlib.contextmanager
+def _dir_lock():
+    """Exclusive lock across processes, held on the source directory."""
+    fd = os.open(_NATIVE_DIR, os.O_RDONLY)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)
+
+
+def _build() -> None:
+    tmp = f"{os.path.basename(_LIB_PATH)}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(
+            ["make", "-s", "-C", _NATIVE_DIR, f"OUT={tmp}"],
+            check=True,
+            capture_output=True,
+        )
+        os.replace(os.path.join(_NATIVE_DIR, tmp), _LIB_PATH)
+    finally:
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(os.path.join(_NATIVE_DIR, tmp))
 
 
 def get_lib() -> ctypes.CDLL:
@@ -31,15 +64,10 @@ def get_lib() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        srcs = [
-            os.path.join(_NATIVE_DIR, f)
-            for f in os.listdir(_NATIVE_DIR)
-            if f.endswith(".c")
-        ]
-        if not os.path.exists(_LIB_PATH) or any(
-            os.path.getmtime(s) > os.path.getmtime(_LIB_PATH) for s in srcs
-        ):
-            _build()
+        if _stale():
+            with _dir_lock():
+                if _stale():
+                    _build()
         lib = ctypes.CDLL(_LIB_PATH)
 
         lib.aes128_ctr_keystream.argtypes = [

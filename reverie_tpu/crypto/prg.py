@@ -54,7 +54,7 @@ def expand_seeds(seeds: np.ndarray) -> np.ndarray:
 
 
 def key_expand_batch(keys: np.ndarray) -> np.ndarray:
-    """(n, 16) AES keys -> (n, 11, 16) round keys (for the Pallas AES kernel)."""
+    """(n, 16) AES keys -> (n, 11, 16) round keys (for the bitsliced AES round-key planes)."""
     keys = np.ascontiguousarray(keys, dtype=np.uint8)
     n = keys.shape[0]
     out = np.empty((n, 11, 16), dtype=np.uint8)

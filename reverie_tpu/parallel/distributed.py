@@ -1,25 +1,25 @@
 """Multi-process ("multi-host") proving.
 
 The reference's only parallelism is a shared-memory rayon pool over its 32
-packed repetition groups (proof/mod.rs:127-128).  At pod scale the two
+packed repetition groups (proof/mod.rs:127-128).  Across many devices the two
 analogous axes, both embarrassingly parallel, are:
 
 * ``global_mesh()`` -- ONE proof with the repetition axis sharded over every
   process's devices.  Each process executes its slice of the repetitions;
   the only cross-process traffic is the per-rep commitment hashes (32 B/rep,
   all-gathered into the Fiat-Shamir barrier) and the replicated extraction
-  buffers at proof assembly.  XLA inserts the collectives (ICI within a
-  host, DCN across hosts); TpuKKW detects a process-spanning mesh and emits
+  buffers at proof assembly.  XLA inserts the collectives (NCCL between
+  GPUs); TpuKKW detects a process-spanning mesh and emits
   replicated output shardings for everything the host must read.
 
 * ``prove_batch_distributed`` -- N independent proofs with the proof axis
   split across processes (BASELINE.json config 5: a 1024-proof batch over a
-  pod slice).  Zero cross-process communication during proving: each process
+  cluster).  Zero cross-process communication during proving: each process
   proves its contiguous slice on its local devices, then the serialized
   proofs are all-gathered so every process returns the identical full list.
 
 Tested with multi-process CPU meshes (SURVEY.md section 4's recipe) in
-tests/test_distributed.py; the same code drives multi-host TPU pods, where
+tests/test_distributed.py; the same code drives multi-host GPU clusters, where
 ``initialize`` is called once per host before any backend use.
 """
 

@@ -1,8 +1,8 @@
 """Multi-chip sharding of KKW execution over a device mesh.
 
 The repetition axis is embarrassingly parallel (the reference's only
-parallelism is rayon threads over packed groups, proof/mod.rs:127-128); on
-TPU we shard it over the mesh with `jax.sharding` -- each device executes its
+parallelism is rayon threads over packed groups, proof/mod.rs:127-128); here
+it is sharded over the mesh with `jax.sharding` -- each device executes its
 slice of repetitions, and only the per-rep commitment hashes (32 B/rep) ever
 cross the interconnect.  Batch-of-proofs workloads additionally shard the
 proof axis across hosts (see bench configs in BASELINE.json).

@@ -1,6 +1,6 @@
 """Proof orchestration: prove + verify (reference src/proof/mod.rs:118-308).
 
-This module drives a backend (CPU golden backend today, TPU backend via the
+This module drives a backend (CPU golden backend today, device backend via the
 same interfaces) through the KKW flow:
 
   prove:   execute all 32 packed groups -> 256 rep hashes -> comm ->

@@ -2,7 +2,7 @@
 
 The reference's only profiling story is `time` + debug prints
 (README.md:25,31); here we provide structured phase timing plus optional
-XLA/TPU profiler traces for per-kernel roofline analysis."""
+JAX profiler traces for per-kernel roofline analysis."""
 
 from __future__ import annotations
 

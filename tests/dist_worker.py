@@ -27,10 +27,10 @@ if "xla_force_host_platform_device_count" not in flags:
 
 import jax  # noqa: E402
 
+from reverie_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
 jax.config.update("jax_platforms", "cpu")
-_cache = os.path.join(os.path.dirname(__file__), ".jax_cache")
-jax.config.update("jax_compilation_cache_dir", _cache)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+enable_compile_cache()
 
 
 def main() -> None:
@@ -79,18 +79,6 @@ def main() -> None:
     for i in range(n):
         g = TpuKKW(prog).prove(wit2, witz, seeds=seeds_n[i]).to_bytes()
         assert proofs[i].to_bytes() == g, f"batch proof {i} mismatch"
-
-    # 4. shard_map Pallas AES tape on the process-spanning mesh -------------
-    # (interpret mode stands in for the TPU kernel; byte-identity vs the
-    # host-AES golden proves the shard_map key/lane split is exact)
-    prog3, wit3, witz3 = mul_bench_circuit(2100)  # m2 > 4096 -> device tape
-    golden3 = TpuKKW(prog3).prove(wit3, witz3, seeds=seeds).to_bytes()
-    os.environ["REVERIE_PALLAS_INTERPRET"] = "1"
-    try:
-        p3 = TpuKKW(prog3, mesh=gm).prove(wit3, witz3, seeds=seeds)
-        assert p3.to_bytes() == golden3, "shard_map pallas proof mismatch"
-    finally:
-        del os.environ["REVERIE_PALLAS_INTERPRET"]
 
     with open(os.path.join(outdir, f"ok_{pid}"), "w") as f:
         f.write("OK")

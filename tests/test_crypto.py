@@ -80,3 +80,42 @@ def test_random_oracle_stream_consistency():
     assert a == b
     # matches raw XOF of ctx || 0x00 || input
     assert b == blake3_xof(b"random-oracle challenge\x00abc", 37)
+
+
+_BUILD_RACE = """
+import importlib.util, sys
+spec = importlib.util.spec_from_file_location("native_copy", sys.argv[1])
+native = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(native)
+native._NATIVE_DIR = sys.argv[2]
+native._LIB_PATH = sys.argv[2] + "/libreverie_native.so"
+out = bytearray(16)
+native.get_lib().aes128_encrypt_block(bytes(16), bytes(16), (__import__("ctypes").c_char * 16).from_buffer(out))
+print(out.hex())
+"""
+
+
+def test_native_build_from_many_processes(tmp_path):
+    """Processes that find no library all load a whole one: the build is
+    locked and renamed into place, never loaded while half written."""
+    import os
+    import shutil
+    import subprocess
+    import sys
+
+    from reverie_tpu.crypto import native
+
+    for f in os.listdir(native._NATIVE_DIR):
+        if f == "Makefile" or f.endswith(".c"):
+            shutil.copy(os.path.join(native._NATIVE_DIR, f), tmp_path)
+    procs = [
+        subprocess.Popen([sys.executable, "-c", _BUILD_RACE, native.__file__, str(tmp_path)],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for _ in range(8)
+    ]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert [p.returncode for p in procs] == [0] * 8, [err for _, err in outs]
+    # AES-128 of the zero block under the zero key.
+    assert {out.strip() for out, _ in outs} == {"66e94bd4ef8a2c3b884cfa59ca342b2e"}
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        ["Makefile", "aes_ctr.c", "blake3_ref.c", "libreverie_native.so"])

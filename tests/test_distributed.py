@@ -2,7 +2,7 @@
 
 Launches 2 worker processes (tests/dist_worker.py), each contributing 4
 virtual CPU devices to an 8-device global mesh over jax.distributed (the
-CPU stand-in for a multi-host TPU pod; SURVEY.md section 4).  Workers check
+CPU stand-in for a multi-host cluster; SURVEY.md section 4).  Workers check
 rep-axis-sharded single proofs, a mixed z64+B2A circuit, distributed
 verification, and the proof-axis-sharded batch path, each byte-identical to
 the unsharded golden.

@@ -1,6 +1,6 @@
 """Random-op-mix differential fuzz: arbitrary valid programs over every
 gate kind in both domains (plus B2A bridges) must prove byte-identically
-on the TPU backend vs the CPU golden backend, and verify.
+on the device backend vs the CPU golden backend, and verify.
 
 The structured differential tests cover each op family in isolation;
 this covers arbitrary interleavings (wire reuse across domains, consts
@@ -11,120 +11,22 @@ import numpy as np
 import pytest
 
 from reverie_tpu.backend.tpu_host import TpuKKW
-from reverie_tpu.circuit import CombineOp, Gate, Op
+from reverie_tpu.circuit.builders import random_mixed_circuit
 from reverie_tpu.circuit.eval import evaluate_composite_program
 from reverie_tpu.proof import prove as cpu_prove
 
 
-def random_program(seed: int, n_gates: int = 60):
-    """A random well-formed combine program: every src wire is already
-    written in its domain; ASSERT_ZERO targets are made satisfiable by
-    asserting (x - x) style constructions."""
-    rng = np.random.RandomState(seed)
-    ops = []
-    g2 = []  # gf2 wires written
-    gz = []  # z64 wires written
-    wit2 = []
-    witz = []
-    n2 = nz = 0
-
-    def w2():
-        return int(g2[rng.randint(len(g2))])
-
-    def wz():
-        return int(gz[rng.randint(len(gz))])
-
-    # seed each domain with an input + a const + a random
-    for _ in range(2):
-        ops.append(CombineOp.gf2(Gate(Op.INPUT, dst=n2)))
-        wit2.append(bool(rng.randint(2)))
-        g2.append(n2)
-        n2 += 1
-        ops.append(CombineOp.z64(Gate(Op.INPUT, dst=nz)))
-        witz.append(int(rng.randint(0, 2**63)))
-        gz.append(nz)
-        nz += 1
-    ops.append(CombineOp.gf2(Gate(Op.CONST, dst=n2, const=1)))
-    g2.append(n2)
-    n2 += 1
-    ops.append(CombineOp.z64(Gate(Op.CONST, dst=nz,
-                                  const=int(rng.randint(0, 2**62)))))
-    gz.append(nz)
-    nz += 1
-    ops.append(CombineOp.gf2(Gate(Op.RANDOM, dst=n2)))
-    g2.append(n2)
-    n2 += 1
-    ops.append(CombineOp.z64(Gate(Op.RANDOM, dst=nz)))
-    gz.append(nz)
-    nz += 1
-
-    kinds = [Op.ADD, Op.ADDC, Op.SUB, Op.SUBC, Op.MUL, Op.MULC, Op.CONST,
-             Op.INPUT, Op.RANDOM, "B2A", "ASSERT2", "ASSERTZ"]
-    for _ in range(n_gates):
-        k = kinds[rng.randint(len(kinds))]
-        dom = rng.randint(2)  # 0 = gf2, 1 = z64
-        if k == "B2A":
-            ops.append(CombineOp.b2a(nz, w2()))
-            gz.append(nz)
-            nz += 1
-            continue
-        if k == "ASSERT2":
-            # (x ^ x) == 0 -- always satisfiable
-            x = w2()
-            ops.append(CombineOp.gf2(Gate(Op.ADD, dst=n2, src1=x, src2=x)))
-            ops.append(CombineOp.gf2(Gate(Op.ASSERT_ZERO, src1=n2)))
-            g2.append(n2)
-            n2 += 1
-            continue
-        if k == "ASSERTZ":
-            x = wz()
-            ops.append(CombineOp.z64(Gate(Op.SUB, dst=nz, src1=x, src2=x)))
-            ops.append(CombineOp.z64(Gate(Op.ASSERT_ZERO, src1=nz)))
-            gz.append(nz)
-            nz += 1
-            continue
-        if dom == 0:
-            c = int(rng.randint(2))
-            if k == Op.INPUT:
-                wit2.append(bool(rng.randint(2)))
-                ops.append(CombineOp.gf2(Gate(Op.INPUT, dst=n2)))
-            elif k in (Op.CONST, Op.RANDOM):
-                ops.append(CombineOp.gf2(Gate(k, dst=n2, const=c)))
-            elif k in (Op.ADDC, Op.SUBC, Op.MULC):
-                ops.append(CombineOp.gf2(Gate(k, dst=n2, src1=w2(), const=c)))
-            else:
-                ops.append(CombineOp.gf2(
-                    Gate(k, dst=n2, src1=w2(), src2=w2())))
-            g2.append(n2)
-            n2 += 1
-        else:
-            c = int(rng.randint(0, 2**63))
-            if k == Op.INPUT:
-                witz.append(int(rng.randint(0, 2**63)))
-                ops.append(CombineOp.z64(Gate(Op.INPUT, dst=nz)))
-            elif k in (Op.CONST, Op.RANDOM):
-                ops.append(CombineOp.z64(Gate(k, dst=nz, const=c)))
-            elif k in (Op.ADDC, Op.SUBC, Op.MULC):
-                ops.append(CombineOp.z64(Gate(k, dst=nz, src1=wz(), const=c)))
-            else:
-                ops.append(CombineOp.z64(
-                    Gate(k, dst=nz, src1=wz(), src2=wz())))
-            gz.append(nz)
-            nz += 1
-    return ops, wit2, witz
-
-
 def _roundtrip(seed, n_gates=60):
-    prog, wit2, witz = random_program(seed, n_gates)
+    prog, wit2, witz = random_mixed_circuit(seed, n_gates)
     # sanity: cleartext evaluation must not raise (witness satisfies asserts)
     evaluate_composite_program(prog, wit2, witz)
     seeds = np.random.RandomState(seed + 1).randint(
         0, 256, size=(32, 8, 16), dtype=np.uint8)
     golden = cpu_prove(prog, wit2, witz, seeds=seeds)
     sys_ = TpuKKW(prog)
-    tpu = sys_.prove(wit2, witz, seeds=seeds.reshape(256, 16))
-    assert tpu.to_bytes() == golden.to_bytes(), f"seed {seed}"
-    assert sys_.verify(tpu), f"seed {seed}"
+    proof = sys_.prove(wit2, witz, seeds=seeds.reshape(256, 16))
+    assert proof.to_bytes() == golden.to_bytes(), f"seed {seed}"
+    assert sys_.verify(proof), f"seed {seed}"
 
 
 @pytest.mark.parametrize("seed", [11, 23])

@@ -1,5 +1,5 @@
 """Streaming segmented prover (backend/streaming.py): proofs must be
-byte-identical to the unsegmented TPU prover and accepted by the reference-
+byte-identical to the unsegmented device prover and accepted by the reference-
 compatible verifiers, for every segmentation granularity (SURVEY §7
 hard-part 5)."""
 
@@ -288,21 +288,20 @@ def test_streamed_deep_mesh_composition():
     assert sk.verify(proof)
 
 
-@pytest.mark.slow
-def test_streamed_prove_u8_interpret_matches_unsegmented(monkeypatch):
-    """The streaming u8 device-tape branch (Pallas interpret on CPU) must
-    produce byte-identical proofs to the unsegmented prover -- CI coverage
-    for the round-5 segment-window tape path without hardware."""
-    monkeypatch.setenv("REVERIE_PALLAS_INTERPRET", "1")
-    from reverie_tpu.backend.streaming import StreamingKKW
-    from reverie_tpu.backend.tpu_host import TpuKKW
-    from reverie_tpu.circuit.builders import mul_bench_circuit
-
-    prog, wit2, witz = mul_bench_circuit(6000)  # m2 = 12002 > 4096/segment
-    rng = np.random.RandomState(3)
-    seeds = rng.randint(0, 256, size=(256, 16), dtype=np.uint8)
-    base = TpuKKW(prog).prove(wit2, witz, seeds=seeds)
-    s = StreamingKKW(prog, 3000)
-    p = s.prove(wit2, witz, seeds=seeds)
-    assert p.to_bytes() == base.to_bytes()
-    assert s.verify(p)
+@pytest.mark.parametrize("name,mk,seg_ops", [
+    # every segment window >= 4096 gf2 / 512 z64 tape slots: the device AES
+    # route (tpu_host.device_tape_eligible), one compile per window shape
+    ("gf2", lambda: mul_bench_circuit(4200), 2101),
+    ("z64", lambda: z64_mul_bench_circuit(600), 301),
+])
+def test_streamed_device_tape_matches_unsegmented(name, mk, seg_ops):
+    """Segments build their tape windows with the device AES (CTR start
+    block per window) and prove byte-identically to unsegmented proving."""
+    prog, wit2, witz = mk()
+    s = seeds256()
+    base = TpuKKW(prog).prove(wit2, witz, seeds=s)
+    sk = StreamingKKW(prog, seg_ops)
+    assert len(sk.segments) == 2
+    proof = sk.prove(wit2, witz, seeds=s)
+    assert ("aes" if name == "gf2" else "aesz") in sk._bitx
+    assert proof.to_bytes() == base.to_bytes()
